@@ -113,13 +113,13 @@ def _add_predict_flags(p):
     p.add_argument("--threads", type=_ranged(int, 0, None, "--threads"),
                    default=0, help="0 = auto")
     p.add_argument("--use-tpu", type=int, default=-1, choices=(-1, 0, 1),
-                   help="score alignment candidates on the accelerator "
+                   help="score alignment candidates on the device (GPU) "
                         "(-1 auto: on when a device is attached and the "
                         "workload amortizes it; output-identical)")
     p.add_argument("--prefilter-engine", type=str, default="auto",
                    choices=("auto", "host", "device"),
                    help="k-mer matching engine: host index walk or dense "
-                        "device (MXU) matching; auto picks by workload "
+                        "device (GPU) matching; auto picks by workload "
                         "(output is byte-identical either way)")
     p.add_argument("--split-memory-limit",
                    type=_ranged(int, 0, None, "--split-memory-limit"),

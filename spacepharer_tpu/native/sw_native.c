@@ -26,7 +26,7 @@
  *
  * Vertical vectorization of sw_forward over the query rows with the
  * affine-F recurrence re-expressed as a prefix max (the same algebra
- * as the Pallas kernel, ops/sw_packed.py): hp never depends on F, so
+ * as the XLA scan, ops/sw_tpu.py): hp never depends on F, so
  *   F_j = max_{k<j}(hp_k + k*ge) - go - (j-1)*ge
  * and every quantity stays exact in int16 while the query's score
  * bound is small (the caller routes big-bound/long queries to the

@@ -7,9 +7,10 @@ Parity targets (see docs/SEARCH_SEMANTICS.md):
   KmerGenerator                  (similar k-mer set = exact threshold set)
   UngappedAlignment              (diagonal rescoring with VTML40@2)
 
-This round-1 engine is vectorized NumPy, organized so the hot pieces
+This engine is vectorized NumPy, organized so the hot pieces
 (unique-code scoring, diagonal rescoring) are batched array ops; the
-Pallas postings-gather kernel replaces the inner matching at scale.
+native batch driver (native/search_native.c) runs the same walk in C,
+and ops/prefilter_dense.py recomputes the match set on the device.
 """
 import os
 
@@ -54,10 +55,11 @@ class PrefilterParams:
     # stop early, stragglers continue to the next (more sensitive) step
     start_sens: float = 4.0
     sens_steps: int = 1
-    # k-mer matching engine: "host" = index walk (prefilter_query),
-    # "device" = dense MXU matching (ops/prefilter_dense.py, needs no
-    # postings index), "auto" = device when an accelerator is attached
-    # and the workload amortizes it. Output is byte-identical either way.
+    # k-mer matching engine ("host" = index walk, prefilter_query;
+    # "device" = dense matrix-product matching, ops/prefilter_dense.py,
+    # needs no postings index; "auto" = device when an accelerator is
+    # attached and the workload amortizes it). Output is byte-identical
+    # either way.
     engine: str = "auto"
 
     @property

@@ -5,14 +5,15 @@ and merging result files (Prefiltering::runMpiSplits,
 lib/mmseqs/src/prefiltering/Prefiltering.cpp:559-600). Here the same
 work distribution is expressed once in `sharded_search_step`: the
 global mesh spans all hosts' devices, targets shard over the ``t``
-axis (ICI within a slice, DCN across slices), and the per-shard top-k
-merge is an on-device collective instead of a filesystem merge.
+axis, and the per-shard top-k merge is an on-device collective instead
+of a filesystem merge. XLA lowers the collectives to NCCL: NVLink
+between the GPUs of one host, the network between hosts.
 
-Launch one process per host with the usual JAX cluster variables
-(auto-detected on TPU pods) or pass them explicitly:
+Launch one process per host and pass the cluster explicitly (nothing
+on a plain GPU host tells JAX of a cluster):
 
     from spacepharer_tpu.parallel.distributed import initialize
-    initialize()                      # TPU pod: fully automatic
+    initialize("host0:12345", num_processes=2, process_id=rank)
     mesh = make_mesh(n_query_shards=jax.process_count())
     step = sharded_search_step(mesh, top_k=...)
 
@@ -25,7 +26,8 @@ import numpy as np
 
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None):
-    """jax.distributed.initialize with env/TPU auto-detection."""
+    """jax.distributed.initialize; without arguments JAX falls back to
+    its cluster auto-detection (SLURM, Open MPI, ...)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs.update(coordinator_address=coordinator_address,

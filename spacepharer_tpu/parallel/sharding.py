@@ -1,14 +1,16 @@
 """Device-mesh sharding of the search step.
 
-TPU translation of the reference's split modes (SURVEY.md §2.3): the
-target ORF database shards across the mesh's ``t`` axis (the analog of
-target-DB splits, Prefiltering.cpp:709-740) and query batches ride the
-``q`` axis (query splits / MPI ranks). The per-split filesystem merge
-(Prefiltering::mergeTargetSplits) becomes an on-device top-k +
-all-gather over ICI.
+Device translation of the reference's split modes (SURVEY.md §2.3):
+the target ORF database shards across the mesh's ``t`` axis (the
+analog of target-DB splits, Prefiltering.cpp:709-740) and query
+batches ride the ``q`` axis (query splits / MPI ranks). The per-split
+filesystem merge (Prefiltering::mergeTargetSplits) becomes an
+on-device top-k + all-gather, which XLA hands to NCCL over NVLink.
+The GPUs of one host are joined all to all, so the (q, t) mesh shape
+follows the algorithm, not a physical topology.
 
 All functions are pure and jit-able over a jax.sharding.Mesh; with one
-device they degrade to the single-chip path.
+device they degrade to the single-device path.
 """
 from functools import partial
 
@@ -16,8 +18,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-from ..ops.sw_tpu import sw_score_batch  # noqa: F401  (candidate-batch path)
 
 
 def make_mesh(n_query_shards: int = 1, n_target_shards: int = None,
@@ -119,8 +119,6 @@ def sharded_search_pipeline(mesh: Mesh, top_k: int, n_sets: int,
       (top_scores [Q, k], top_idx [Q, k] global target ids,
        best_per_set [Q, n_sets][, combined [n_qsets, n_sets]]).
     """
-    from jax.experimental.shard_map import shard_map
-
     def _core(q_prof, q_len, t_seqs, t_len, set_of_t):
         scores = sw_score_allpairs(q_prof, q_len, t_seqs, t_len, 16, 2)
         t_local = t_seqs.shape[0]
@@ -155,59 +153,21 @@ def sharded_search_pipeline(mesh: Mesh, top_k: int, n_sets: int,
         return sc2, idx2, best_set, comb
 
     if n_qsets:
-        f = shard_map(
+        f = jax.shard_map(
             local_step_agg, mesh=mesh,
             in_specs=(P("q", None, None), P("q"), P("t", None), P("t"),
                       P("t"), P("q")),
             out_specs=(P("q", None), P("q", None), P("q", None),
                        P(None, None)),
-            check_rep=False)
+            check_vma=False)
     else:
-        f = shard_map(
+        f = jax.shard_map(
             local_step, mesh=mesh,
             in_specs=(P("q", None, None), P("q"), P("t", None), P("t"),
                       P("t")),
             out_specs=(P("q", None), P("q", None), P("q", None)),
-            check_rep=False)
+            check_vma=False)
     return jax.jit(f)
-
-
-def sharded_allpairs_scores(mesh: Mesh, q_list, t_list, matrix_scores,
-                            bias_list=None, gap_open: int = 16,
-                            gap_extend: int = 2) -> np.ndarray:
-    """All-pairs SW scores [Q, T] over a (q, t) device mesh.
-
-    Query rows ride the ``q`` axis (data parallel over spacer ORFs, the
-    reference's query-split/MPI-rank unit) and the target DB shards
-    over ``t`` (the target-split analog, Prefiltering.h:43-49); every
-    device scores its (query block x target shard) rectangle locally,
-    no cross-device traffic beyond the sharded output. Cells are exact
-    vs the host engine, so the downstream pipeline is byte-identical
-    regardless of mesh shape.
-    """
-    from jax.experimental.shard_map import shard_map
-
-    nq_sh, nt_sh = mesh.devices.shape
-    lq = max(8, ((max((len(q) for q in q_list), default=1) + 7) // 8) * 8)
-    lt = max(8, ((max((len(t) for t in t_list), default=1) + 7) // 8) * 8)
-    Q = -(-len(q_list) // nq_sh) * nq_sh
-    T = -(-len(t_list) // nt_sh) * nt_sh
-    q_pad = list(q_list) + [np.zeros(0, np.int64)] * (Q - len(q_list))
-    t_pad = list(t_list) + [np.zeros(0, np.int64)] * (T - len(t_list))
-    if bias_list is not None:
-        bias_list = list(bias_list) + [np.zeros(0)] * (Q - len(q_list))
-    q_prof, q_len = pack_queries(q_pad, matrix_scores, lq,
-                                 bias_list=bias_list)
-    t_seqs, t_len = pack_targets(t_pad, lt, x_index=20)
-
-    f = shard_map(
-        partial(sw_score_allpairs, gap_open=gap_open,
-                gap_extend=gap_extend),
-        mesh=mesh,
-        in_specs=(P("q", None, None), P("q"), P("t", None), P("t")),
-        out_specs=P("q", "t"), check_rep=False)
-    scores = jax.jit(f)(q_prof, q_len, t_seqs, t_len)
-    return np.asarray(scores)[:len(q_list), :len(t_list)]
 
 
 def pack_queries(q_list, matrix_scores, lq, bias_list=None):

@@ -95,7 +95,10 @@ def compute_fdr_threshold(pos_scores, neg_scores, fdr_cutoff: float,
         tpfp = y[j]
         fp = x[j] * pi0
         current_fdr = 0.0
-        while current_fdr <= fdr_cutoff:
+        # the walk stops at the lowest positive score at the latest:
+        # past it lies only the curve's (1, 1) end point, which has no
+        # score of its own (threshold = keep every positive match)
+        while current_fdr <= fdr_cutoff and j < len(unique_scores) - 1:
             j += 1
             dx = x[j] - x[j - 1]
             tpfp += dx * slope_list[i - 1]

@@ -1,13 +1,10 @@
-"""Gated catalog-scale perf regression (VERDICT r3 task 7).
+"""Gated catalog-scale perf regression (host engines).
 
-Run with SPACEPHARER_CATALOG_BENCH=1 (like the hardware tier's
-SPACEPHARER_TPU_TESTS). Reproduces BASELINE.md's catalog row at the 2k
-operating point: builds the corpora if absent, runs
-tools/bench_catalog.py end to end, and asserts wall-time and peak-RSS
-bounds. Bounds are deliberately loose — this host's page-fault cost
-swings identical runs ±50% (CLAUDE.md) — so only real order-of-
-magnitude regressions (e.g. a per-query Python driver sneaking back)
-trip it.
+Run with SPACEPHARER_CATALOG_BENCH=1. Builds the catalog corpora if
+absent, runs tools/bench_catalog.py end to end at the 2k-set operating
+point, and asserts wall-time and peak-RSS bounds. The bounds are
+deliberately loose, order-of-magnitude guards (e.g. against a
+per-query Python driver sneaking back), not measurements.
 """
 import glob
 import json

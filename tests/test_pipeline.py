@@ -107,7 +107,7 @@ def test_regression_lca_invariants(tax_dbs):
 
 
 def test_predictmatch_use_tpu_output_identical(dbs, golden):
-    """The accelerator bulk-scoring path (--use-tpu) must reproduce the
+    """The device bulk-scoring path (--use-tpu) must reproduce the
     host path byte for byte (here on the CPU jax backend)."""
     qdb, tdb, cdb = dbs
     res = predict_match(qdb, tdb, cdb, PredictParams(use_tpu=True))
@@ -137,19 +137,5 @@ def test_predictmatch_mesh_shapes_byte_identical(dbs, golden, mesh):
     8-device virtual CPU mesh."""
     qdb, tdb, cdb = dbs
     res = predict_match(qdb, tdb, cdb, PredictParams(mesh=mesh))
-    with open(os.path.join(golden, "result.tsv")) as fh:
-        assert res.text == fh.read()
-
-
-def test_predictmatch_key_blocked_scoring_identical(dbs, golden,
-                                                    monkeypatch):
-    """Catalog-scale key blocking: forcing the per-block score-matrix
-    budget down so _search_tpu splits the queries into many blocks
-    (each with its own candidate union) must leave the output
-    byte-identical — the blocks are a pure memory-layout choice."""
-    from spacepharer_tpu.pipeline import predictmatch as pm
-    qdb, tdb, cdb = dbs
-    monkeypatch.setattr(pm, "_MAX_MATRIX_CELLS", 500)
-    res = predict_match(qdb, tdb, cdb, PredictParams(use_tpu=True))
     with open(os.path.join(golden, "result.tsv")) as fh:
         assert res.text == fh.read()

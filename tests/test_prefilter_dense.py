@@ -143,30 +143,35 @@ def test_dense_xla_backend_matches_numpy():
     thr = params.kmer_threshold()
     gi0, gj0 = match_pairs_numpy(batch, flat, t_bval, seed_m.scores, thr)
     gi1, gj1 = match_pairs_device(batch, flat, t_bval, seed_m.scores, thr,
-                                  backend="xla", chunk=2048, extract_b=8)
+                                  chunk=2048, extract_b=8)
     a = sorted(zip(gi0.tolist(), gj0.tolist()))
     b = sorted(zip(gi1.tolist(), gj1.tolist()))
     assert a == b
     assert len(a) > 0
 
 
-def test_dense_pallas_interpret_matches_numpy():
-    queries, targets = make_corpus(11, n_targets=12, n_queries=4)
-    params = PrefilterParams(mask=False)
+@pytest.mark.parametrize("seed", [11, 12])
+@pytest.mark.parametrize("mask", [False, True])
+def test_dense_device_chunks_match_numpy(seed, mask):
+    """match_pairs_device over several chunks (each counted per tile and
+    only hit tiles extracted) gives the oracle's exact match set, with
+    and without tantan masking of the target."""
+    queries, targets = make_corpus(seed, n_targets=24, n_queries=5)
+    params = PrefilterParams(mask=mask)
     seed_m = load_matrix(params.seed_matrix, 8.0)
     q_all = [np.asarray(q, np.int64) for q in queries]
     bias80 = [local_aa_bias(q, seed_m) for q in q_all]
     keys = list(range(len(queries)))
     batch = build_query_batch(q_all, keys, bias80, params)
-    flat = np.concatenate([np.asarray(t, np.uint8) for t in targets])
-    starts = np.zeros(len(targets) + 1, dtype=np.int64)
-    np.cumsum([len(t) for t in targets], out=starts[1:])
+    flat, starts = build_target_index(targets, params).packed_masked()
+    flat = np.asarray(flat, np.uint8)
+    starts = np.asarray(starts, np.int64)
     t_bval = target_boundary_valid(starts, batch.span)
     thr = params.kmer_threshold()
     gi0, gj0 = match_pairs_numpy(batch, flat, t_bval, seed_m.scores, thr)
     gi1, gj1 = match_pairs_device(batch, flat, t_bval, seed_m.scores, thr,
-                                  backend="pallas", interpret=True,
-                                  chunk=1024, extract_b=8)
+                                  chunk=256, extract_b=8)
+    assert len(flat) > 2 * 256
     a = sorted(zip(gi0.tolist(), gj0.tolist()))
     b = sorted(zip(gi1.tolist(), gj1.tolist()))
     assert a == b

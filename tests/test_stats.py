@@ -85,6 +85,19 @@ def test_fdr_threshold_short_list_fallback():
     assert any("too short" in m for m in msgs)
 
 
+def test_fdr_threshold_walk_stops_at_lowest_positive():
+    """When the FDR along the last hull segment never exceeds the cutoff,
+    the walk ends at the lowest positive score (every match kept)
+    instead of stepping past the score list."""
+    pos = [1.9, 5.3, 18.6, 19.0]
+    neg = [0.0, 0.0, 0.0, 0.0, 0.1, 0.1, 0.1, 0.2, 0.2, 0.3, 0.5, 0.5,
+           0.5, 0.6, 0.7, 0.8, 0.8, 0.9, 0.9, 0.9, 1.2, 1.3, 1.6, 1.8,
+           2.4, 3.7, 4.0, 11.7]
+    thr, uniq, _, msgs = compute_fdr_threshold(pos, neg, 0.9)
+    assert thr == 1.9 == uniq[-1]
+    assert any("threshold is 1.9" in m for m in msgs)
+
+
 def test_fdr_threshold_separates_signal():
     # strong scores well above an overlapping noise distribution
     rng = np.random.default_rng(5)

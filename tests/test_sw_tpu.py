@@ -1,10 +1,10 @@
-"""TPU batched SW kernel vs the exact host engine."""
+"""XLA batched SW scorer vs the exact host engine."""
 import numpy as np
 import pytest
 
 from spacepharer_tpu.ops.align import _forward_pass
 from spacepharer_tpu.ops.matrices import load_matrix
-from spacepharer_tpu.ops.sw_tpu import build_sub_batch, sw_score_batch
+from spacepharer_tpu.ops.sw_tpu import build_pair_batch, sw_score_batch
 
 
 def _random_pairs(rng, n, lq_range, lt_range):
@@ -17,8 +17,8 @@ def test_sw_batch_matches_host_engine():
     rng = np.random.default_rng(7)
     m = load_matrix("VTML40.out", 2.0)
     qs, ts = _random_pairs(rng, 24, (5, 24), (10, 120))
-    sub, q_len, t_len = build_sub_batch(qs, ts, m.scores)
-    scores = np.asarray(sw_score_batch(sub, q_len, t_len, 16, 2))
+    batch = build_pair_batch(qs, ts, m.scores)
+    scores = np.asarray(sw_score_batch(*batch, 16, 2))
     for b in range(len(qs)):
         ref_sub = m.scores[qs[b]].astype(np.int64)[:, ts[b]].T
         ref, _, _ = _forward_pass(ref_sub, 16, 2)
@@ -30,8 +30,8 @@ def test_sw_batch_with_bias():
     m = load_matrix("VTML40.out", 2.0)
     qs, ts = _random_pairs(rng, 16, (8, 20), (30, 80))
     biases = [rng.integers(-3, 4, len(q)) for q in qs]
-    sub, q_len, t_len = build_sub_batch(qs, ts, m.scores, biases)
-    scores = np.asarray(sw_score_batch(sub, q_len, t_len, 16, 2))
+    batch = build_pair_batch(qs, ts, m.scores, biases)
+    scores = np.asarray(sw_score_batch(*batch, 16, 2))
     for b in range(len(qs)):
         prof = m.scores[qs[b]].astype(np.int64) + biases[b][:, None]
         ref, _, _ = _forward_pass(prof[:, ts[b]].T, 16, 2)

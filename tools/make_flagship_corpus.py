@@ -1,39 +1,74 @@
 #!/usr/bin/env python3
-"""Generate a GenBank_phage_2018_09-shaped target corpus (VERDICT r4
-ask #1): N mutated copies of each example phage genome, point-mutated
-at --rate so that NO two contigs are identical — killing the
-duplicate-contig tie-break artifact and restoring byte-equality as the
-parity bar at flagship scale (reference README.md:77: ~8000 phage
-genomes, ~400 Mbp; data/genbank_phages_2018_09.tsv).
+"""Generate a GenBank_phage_2018_09-shaped target corpus: N mutated
+copies of each of the three phage genomes of the golden regression run
+(tests/golden_run.tar.gz, the reference's own example genomes),
+point-mutated at --rate so that NO two contigs are identical — no
+duplicate-contig tie-break artifact, so byte-equality stays the parity
+bar at flagship scale (reference README.md:77: ~8000 phage genomes,
+~400 Mbp; data/genbank_phages_2018_09.tsv).
 
-    python tools/make_flagship_corpus.py 820 /tmp/flagship100M
-        -> 2460 genomes, ~100.5 M nt
+    python tools/make_flagship_corpus.py 820 build/flagship100M \
+        --spacers build/spacers
+        -> 2460 genomes, ~100.5 M nt (+ the golden spacers as FASTA)
 
 Each output file holds one genome (file number = set id, matching
 createdb's set semantics, lib/mmseqs/src/util/createdb.cpp:15).
+--spacers also writes the golden run's spacer DB (`query`) as one FASTA
+file per spacer set, the input of easy-predict.
 """
 import argparse
-import glob
 import gzip
 import os
+import tarfile
+import tempfile
 
 import numpy as np
 
-EXAMPLES = "/root/reference/examples"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN_TAR = os.path.join(REPO, "tests", "golden_run.tar.gz")
 BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
-def read_fasta_seq(path):
-    opener = gzip.open if path.endswith(".gz") else open
-    header = None
-    parts = []
-    with opener(path, "rb") as fh:
-        for line in fh:
-            if line.startswith(b">"):
-                header = line[1:].strip().decode()
-            else:
-                parts.append(line.strip())
-    return header, np.frombuffer(b"".join(parts), dtype=np.uint8)
+def _db(run_dir, name):
+    import sys
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from spacepharer_tpu.io.mmseqs_compat import MMseqsDB
+    return MMseqsDB(os.path.join(run_dir, name))
+
+
+def golden_genomes(run_dir):
+    """[(source file name, header, seq uint8)] of the golden targets."""
+    nucl, heads = _db(run_dir, "targets_nucl"), _db(run_dir, "targets_nucl_h")
+    names = dict(nucl.source())
+    files = {key: num for key, _, num in nucl.lookup()}
+    out = []
+    for i, key in enumerate(nucl.keys):
+        seq = nucl.get_by_rank(i).rstrip(b"\0").strip()
+        header = heads.get_by_rank(i).rstrip(b"\0").strip().decode()
+        out.append((names[files[int(key)]], header,
+                    np.frombuffer(seq, dtype=np.uint8)))
+    return out
+
+
+def write_golden_spacers(run_dir, outdir):
+    """One FASTA file per spacer set of the golden `query` DB."""
+    query, heads = _db(run_dir, "query"), _db(run_dir, "query_h")
+    names = dict(query.source())
+    files = {key: num for key, _, num in query.lookup()}
+    os.makedirs(outdir, exist_ok=True)
+    per_file = {num: [] for num in names}
+    for i, key in enumerate(query.keys):
+        seq = query.get_by_rank(i).rstrip(b"\0").strip()
+        header = heads.get_by_rank(i).rstrip(b"\0").strip()
+        per_file[files[int(key)]].append(b">" + header + b"\n" + seq + b"\n")
+    n = 0
+    for num, recs in sorted(per_file.items()):
+        if recs:
+            with open(os.path.join(outdir, names[num] + ".fas"), "wb") as fh:
+                fh.write(b"".join(recs))
+            n += 1
+    return n
 
 
 def mutate(seq, rate, rng):
@@ -73,16 +108,26 @@ def main():
     ap.add_argument("--rate", type=float, default=0.02,
                     help="per-base substitution rate (default 2%%)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spacers", default=None, metavar="DIR",
+                    help="also write the golden spacer sets as FASTA here")
+    ap.add_argument("--golden-tar", default=GOLDEN_TAR)
     args = ap.parse_args()
 
     rng = np.random.default_rng(args.seed)
     os.makedirs(args.outdir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=args.outdir) as tmp:
+        with tarfile.open(args.golden_tar) as tf:
+            tf.extractall(tmp, filter="tar")
+        run_dir = os.path.join(tmp, "run")
+        genomes = golden_genomes(run_dir)
+        if args.spacers:
+            n_sets = write_golden_spacers(run_dir, args.spacers)
+            print(f"wrote {n_sets} spacer sets to {args.spacers}")
     total = 0
     n_files = 0
-    for src in sorted(glob.glob(os.path.join(EXAMPLES, "GCA_*.fna.gz"))):
-        header, seq = read_fasta_seq(src)
+    for src, header, seq in genomes:
         acc = header.split()[0]
-        base = os.path.basename(src)[:-len(".fna.gz")]
+        base = src[:-len(".fna.gz")] if src.endswith(".fna.gz") else src
         for ci in range(args.n_copies):
             mseq = mutate(seq, args.rate, rng)
             name = f"{base}_mut{ci:05d}.fna.gz"
